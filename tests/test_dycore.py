@@ -150,11 +150,10 @@ def test_wall_value_enforcement():
     assert float(jnp.std(np.asarray(st1.u[:, 0, :]))) < 1e-15
 
 
-def test_rk_step_unroll_matches_scan():
-    """The unrolled substep loop (what bench.py times on TPU) is the
-    same arithmetic as the lax.scan body.  XLA fuses/forms FMAs
-    differently across the inlined substeps, so agreement is to a few
-    ulp (measured 7e-17 on f64), not bitwise."""
+def test_rk_loop_stacked_matches_rk_step():
+    """The driver's dispatch window (rk_loop_stacked: one State<->stack
+    conversion per window) is the same arithmetic as stepping rk_step
+    twice; XLA forms FMAs differently, so agreement is to a few ulp."""
     import jax.numpy as jnp
     from tlab_tpu.dycore import incompressible as dyn
     from tlab_tpu.dycore.state import State
@@ -173,10 +172,75 @@ def test_rk_step_unroll_matches_scan():
                v=jnp.asarray(rng.standard_normal(grid.shape)) * 0.01,
                w=jnp.asarray(rng.standard_normal(grid.shape)) * 0.01,
                s=jnp.asarray(rng.standard_normal((1,) + grid.shape)))
-    a, pa = dyn.rk_step(P, st, 1e-3)
-    b, pb_ = dyn.rk_step(P, st, 1e-3, unroll=True)
+    a, pa = dyn.rk_step(P, dyn.rk_step(P, st, 1e-3)[0], 1e-3)
+    b, pb_ = dyn.rk_loop_stacked(P, st, 1e-3, 2)
     for f in ("u", "v", "w", "s"):
         d = np.max(np.abs(np.asarray(getattr(a, f))
                           - np.asarray(getattr(b, f))))
         assert d < 1e-14, (f, d)
     assert np.max(np.abs(np.asarray(pa) - np.asarray(pb_))) < 1e-12
+
+
+def test_f32_burgers_matches_f64_at_op_precision(monkeypatch):
+    """The f32 [D1;D2] Burgers stack at the default operator precision
+    (HIGHEST: plain fp32 products; TF32 would leave ~1e-3) against the
+    same operator in f64: agreement to fp32 round-off."""
+    from tlab_tpu.ops.derivative import op_precision
+    monkeypatch.delenv("TLAB_TPU_MATMUL_PRECISION", raising=False)
+    assert op_precision(jnp.float32) == jax.lax.Precision.HIGHEST
+
+    grid = uniform_grid(64, 48, 32, 2.0 * np.pi, 1.0, np.pi)
+    fdm = build_fdm_plan(grid)
+    nsp = NSParams(reynolds=500.0, schmidt=(1.0,))
+    bcs = dyn.WallBCs.from_velocity_kind(
+        "freeslip", "freeslip", scalar_bcs=(("neumann", "neumann"),))
+    X = grid.x.nodes[:, None, None]
+    Y = grid.y.nodes[None, :, None]
+    Z = grid.z.nodes[None, None, :]
+    rng = np.random.default_rng(5)
+    Q = np.stack([np.sin(k * X) * np.cos(np.pi * Y) * np.cos(2 * Z)
+                  + 0.01 * rng.standard_normal(grid.shape)
+                  for k in (1, 2, 3, 4)])
+    out = {}
+    for dt in (jnp.float32, jnp.float64):
+        P = dyn.build_device_plans(fdm, nsp, bcs, dtype=dt)
+        Qd = jnp.asarray(Q, dt)
+        nu = jnp.asarray((P["visc"],) * 3 + P["diff"], dt)[:, None, None,
+                                                           None]
+        out[dt] = np.asarray(sum(
+            dyn._burgers_all(P, name, ax, Qd, Qd[ax], nu)
+            for ax, name in enumerate("xyz")), np.float64)
+    err = (np.linalg.norm(out[jnp.float32] - out[jnp.float64])
+           / np.linalg.norm(out[jnp.float64]))
+    assert err < 1e-5, err
+
+
+def _dot_precisions(jaxpr):
+    """precision of every dot_general in a closed jaxpr, nested ones too."""
+    out = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            out.append((eqn.invars[0].aval.dtype, eqn.params["precision"]))
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            out += _dot_precisions(sub)
+    return out
+
+
+def test_every_f32_dot_of_the_step_names_its_precision(monkeypatch):
+    """No dot of an f32 RK step is left at DEFAULT (TF32 on the GPU):
+    wall rows, Burgers, projection and the singular mode all name one."""
+    monkeypatch.delenv("TLAB_TPU_MATMUL_PRECISION", raising=False)
+    grid = uniform_grid(16, 12, 8, 2.0 * np.pi, 1.0, np.pi)
+    fdm = build_fdm_plan(grid)
+    nsp = NSParams(reynolds=500.0, schmidt=(1.0,))
+    bcs = dyn.WallBCs.from_velocity_kind(
+        "freeslip", "freeslip", scalar_bcs=(("neumann", "neumann"),))
+    P = dyn.build_device_plans(fdm, nsp, bcs, dtype=jnp.float32)
+    z = jnp.zeros(grid.shape, jnp.float32)
+    st = State(u=z, v=z, w=z, s=z[None])
+    dots = _dot_precisions(jax.make_jaxpr(
+        lambda s: dyn.rk_step(P, s, 1e-3))(st).jaxpr)
+    assert dots
+    for dtype, prec in dots:
+        assert prec is not None and prec[0] == jax.lax.Precision.HIGHEST, \
+            (dtype, prec)

@@ -2,6 +2,7 @@
 property that makes it the reference's default formulation."""
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from tlab_tpu.constants import BC
 from tlab_tpu.dycore import incompressible as dyn
@@ -90,3 +91,30 @@ def test_factorize_vs_direct_agree():
     # different discretizations of the same PDE: agreement to scheme
     # truncation (the old re-derived closure happened to sit at 5e-5)
     assert np.max(np.abs(a - b)) < 2e-4 * np.max(np.abs(b))
+
+
+def test_materialize_tables_match_inline_build():
+    """The tables built once on the device are the ones the solver
+    rebuilds inline without them."""
+    grid, fdm, dev = _setup(nx=16, ny=24, nz=8)
+    f = jnp.asarray(np.random.default_rng(3).standard_normal(grid.shape))
+    p1, d1 = fac.poisson_factorize(dev, f,
+                                   tables=fac.materialize_tables(dev))
+    p2, d2 = fac.poisson_factorize(dev, f)
+    np.testing.assert_allclose(np.asarray(p1), np.asarray(p2), atol=1e-12)
+    np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), atol=1e-12)
+
+
+@pytest.mark.parametrize("breakage", ["missing_key", "wrong_shape"])
+def test_materialize_tables_raises_on_broken_plan(breakage):
+    """A plan the tables cannot be built from raises; no silent fallback."""
+    grid, fdm, dev = _setup(nx=16, ny=24, nz=8)
+    broken = dict(dev)
+    if breakage == "missing_key":
+        del broken["Wmax"]
+        err = KeyError
+    else:
+        broken["lam_max"] = dev["lam_max"][:-3]
+        err = (TypeError, ValueError)
+    with pytest.raises(err):
+        fac.materialize_tables(broken)

@@ -1,6 +1,6 @@
 """Operator-level validation against analytic fields.
 
-TPU-native port of the reference's valid/ programs (vpartial, vintegral):
+JAX-native port of the reference's valid/ programs (vpartial, vintegral):
 evaluate compact derivatives on sin/cos fields and check accuracy/convergence.
 """
 import numpy as np

@@ -215,10 +215,9 @@ def test_pencil_poisson_matmul_dft():
 
 
 def test_pencil_factorize_matmul_dft():
-    """The distributed FACTORIZE Poisson with matmul-DFT transforms
-    (r5: the same policy as the single-device path -- XLA's TPU FFT is
-    ~bf16-accurate and 2x slower for f32) matches the jnp.fft path to
-    f32 accuracy on the 8-device mesh, for both p and dpdy."""
+    """The distributed FACTORIZE Poisson with matmul-DFT transforms (the
+    same transform policy as the single-device path) matches the jnp.fft
+    path to f32 accuracy on the 8-device mesh, for both p and dpdy."""
     import os
     import functools
     from jax import shard_map

@@ -171,8 +171,8 @@ def test_direct_schemes_convergence():
 
 
 def test_matmul_dft_transform_path():
-    """The DFT-as-matmul transform path (f32 default on TPU) agrees with
-    the XLA-FFT path to f32 roundoff."""
+    """The DFT-as-matmul transform path (TLAB_TPU_POISSON_TRANSFORM=matmul)
+    agrees with the XLA-FFT path to f32 roundoff."""
     import os
     from tlab_tpu.fdm.plan import build_fdm_plan
     from tlab_tpu.grid import uniform_grid

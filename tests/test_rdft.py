@@ -1,11 +1,9 @@
-"""MXU DFT-matmul transforms (ops/rdft.py) vs numpy FFT (the reference's
+"""DFT-matmul transforms (ops/rdft.py) vs numpy FFT (the reference's
 FFTW role, src/operators/opr_fourier.f90:101-200).
 
 A two-stage Cooley-Tukey factoring of these matmuls (N = 128*N2 stages)
-was implemented and measured in round 4: full-step throughput DROPPED
-32% on v5e (432 vs 631 M pts/s) — the 2x padded-MAC saving loses to the
-extra HBM passes for stage intermediates — so the dense single-matmul
-form is the production path and the factored variant was removed.
+was tried earlier and removed: its padded-MAC saving lost to the extra
+memory passes for the stage intermediates.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -34,13 +32,14 @@ def test_dense_rdft_vs_numpy():
 
 
 def test_dft_precision_knob(monkeypatch):
-    """The DFT matmuls follow op_precision (cond-1 matrices; +5% step
-    throughput at HIGH, divergence residual unchanged — r4 probe);
-    TLAB_TPU_DFT_PRECISION=highest restores the old unconditional pin."""
+    """The DFT matmuls follow op_precision (cond-1 matrices), here set to
+    HIGH; TLAB_TPU_DFT_PRECISION=highest pins them to HIGHEST."""
     import jax
     from tlab_tpu.ops.rdft import _dft_precision
     from tlab_tpu.ops.derivative import op_precision
-    assert _dft_precision(jnp.float32) == op_precision(jnp.float32)
+    monkeypatch.setenv("TLAB_TPU_MATMUL_PRECISION", "high")
+    assert _dft_precision(jnp.float32) == op_precision(jnp.float32) \
+        == jax.lax.Precision.HIGH
     assert _dft_precision(jnp.float64) == op_precision(jnp.float64)
     monkeypatch.setenv("TLAB_TPU_DFT_PRECISION", "highest")
     assert _dft_precision(jnp.float32) == jax.lax.Precision.HIGHEST

@@ -63,9 +63,11 @@ def _edge_deriv(P, a, axis: int, side: int):
     """One-sided compact normal derivative at the boundary row."""
     d1 = P["d1y"] if axis == 1 else P["d1x"]
     row = d1[0] if side == 0 else d1[-1]
+    from tlab_tpu.ops.derivative import op_precision
+    prec = op_precision(a.dtype)
     if axis == 1:
-        return jnp.einsum("b,ibk->ik", row, a)
-    return jnp.einsum("b,bjk->jk", row, a)
+        return jnp.einsum("b,ibk->ik", row, a, precision=prec)
+    return jnp.einsum("b,bjk->jk", row, a, precision=prec)
 
 
 def _plane_d1(P, a2d, axis: int, which: str):

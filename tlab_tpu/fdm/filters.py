@@ -1,7 +1,7 @@
 """Filter operators as dense matrices (reference src/filters/*).
 
 All filters are line operators uf = F u along one direction; like the
-derivatives they collapse to precomputed dense matrices applied on the MXU
+derivatives they collapse to precomputed dense matrices applied as matmuls
 (reference equivalents: FLT_C4 compact filter flt_compact.f90, FLT_E4/E6
 explicit filters flt_explitic.f90, FLT_T1 top-hat flt_tophat.f90).
 
@@ -194,7 +194,7 @@ def spectral_matrix_gain(mwn1_grid_units: np.ndarray, kind: str, params):
 def spectral_matrix(n: int, kind: str, params) -> np.ndarray:
     """Dense circulant filter matrix realizing a spectral gain G(k) on a
     periodic axis (reference opr_filter.f90 spectral band/erf applied in
-    Fourier space; here one MXU matmul: M = F^-1 diag(G) F, real)."""
+    Fourier space; here one matmul: M = F^-1 diag(G) F, real)."""
     k = np.arange(n // 2 + 1) * (2.0 * np.pi / n)   # grid-units wavenumber
     gain = spectral_matrix_gain(k, kind, params)
     row = np.fft.irfft(gain, n)

@@ -13,7 +13,7 @@ directions.
 
 This replaces the reference's banded-LU plan type fdm_dt / fdm_derivative_dt
 (src/fdm/fdm.f90:14-29, src/fdm/fdm_derivative.f90:16-29) with a dense,
-MXU-friendly representation: on TPU a compact derivative is one batched
+matmul-friendly representation: a compact derivative is one batched
 matmul instead of a banded matvec + Thomas sweep.
 """
 from __future__ import annotations

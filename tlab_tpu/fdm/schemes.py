@@ -8,8 +8,8 @@ left-hand side) and B (explicit right-hand side) of the linear relation
     A f'' = B f + C f'  (2nd derivative; C is the nonuniform-grid Jacobian
                          correction, zero on uniform grids)
 
-The dense form is the TPU-native choice: the derivative operator collapses to
-a single precomputed matrix D = A^-1 B applied on the MXU as a batched matmul,
+The dense form is the accelerator's choice: the derivative operator collapses to
+a single precomputed matrix D = A^-1 B applied as a batched matmul,
 instead of the reference's banded LU sweeps (cf. reference
 src/fdm/fdm_com1_jacobian.f90, fdm_com2_jacobian.f90, which define the same
 schemes as diagonal arrays for Thomas solves).

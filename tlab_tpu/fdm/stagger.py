@@ -1,7 +1,7 @@
 """Horizontally staggered pressure grid: compact midpoint interpolation and
 midpoint-derivative operators on periodic uniform axes.
 
-TPU-native equivalent of the reference's staggered-pressure machinery
+JAX-native equivalent of the reference's staggered-pressure machinery
 (src/fdm/fdm_interpolate.f90, fdm_com0_jacobian.f90 FDM_C0INT6P/C1INT6P
 families; used by src/tools/dns/rhs_global_incompressible_1.f90:216-320
 when stagger_on): pressure lives at horizontal cell centers x_{i+1/2}.

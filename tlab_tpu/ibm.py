@@ -186,7 +186,7 @@ def build_ibm_spline(eps: np.ndarray, grid, dtype=jnp.float64,
 # are (nx/Px, ny, nz/Pz) and the x/z Burgers stacks are GATHERED to full
 # lines with a further split of the other horizontal axis (parallel/
 # pencil.py gather_x/gather_z) -- the global IBM tables must be sliced to
-# exactly the coordinates each device holds.  This is the TPU analog of
+# exactly the coordinates each device holds.  This is the analog of
 # the reference running its spline fill on the gathered MPI pencils
 # (ibm_spline.f90:30 inside OPR_Burgers, opr_burgers.f90:468).
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Per-shard field I/O for sharded arrays.
 
-TPU-native equivalent of the reference's MPI-IO subarray machinery
+JAX-native equivalent of the reference's MPI-IO subarray machinery
 (src/base/io_fields.f90 IO_Create_Subarray_XOZ + collective
 read/write): each device's shard is streamed to its own file together
 with a JSON manifest recording the global shape and the index slab of

@@ -29,8 +29,7 @@ def opr_check(sim) -> dict:
     out["fft_roundtrip_residual"] = float(jnp.max(jnp.abs(u_back - u)))
     out["fft_time_s"] = time.perf_counter() - t0
 
-    # matmul-DFT round-trip (the f32 production transform; XLA's TPU FFT
-    # is only ~bf16-accurate for f32, see ops/rdft.py)
+    # matmul-DFT round-trip (the alternative f32 transform, ops/rdft.py)
     if sim.grid.x.periodic and nx % 2 == 0:
         from tlab_tpu.ops import rdft
         t0 = time.perf_counter()

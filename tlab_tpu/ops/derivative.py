@@ -1,6 +1,6 @@
 """Derivative application: dense operator matmuls along one array axis.
 
-On TPU a compact-FD derivative is a single MXU matmul with the precomputed
+A compact-FD derivative is a single matmul with the precomputed
 dense operator (see tlab_tpu.fdm.plan). This replaces the reference's
 transpose -> banded matvec -> Thomas solve pipeline (src/operators/
 opr_partial.f90:31-150) with one fused contraction that XLA shards and
@@ -31,30 +31,33 @@ _EINSUM4 = {
 
 
 _PRECISION_BY_NAME = {
-    "default": jax.lax.Precision.DEFAULT,
+    "default": None,
     "high": jax.lax.Precision.HIGH,
     "highest": jax.lax.Precision.HIGHEST,
 }
 
 
 def op_precision(dtype):
-    """Matmul precision for operator applications.
+    """Matmul precision for f32 operator applications (None otherwise).
 
-    TPU f32 matmuls default to one-pass bf16, which loses ~2 digits per
-    derivative -- measured per-RK-step relative error vs float64:
-    default 2.5e-2 (unusable), high (3-pass) 5.9e-5, highest (6-pass)
-    8.8e-7.  HIGH is the production default: its 5.9e-5 per-step relative
-    error sits ~20x below the compact-C6 spatial truncation error of a
-    resolved DNS at production resolutions (k h ~ 1 modes carry O(1e-3)
-    relative derivative error), and it runs the fused step ~1.25x faster
-    (864x vs 675x the reference baseline, PARITY perf study).  Export
-    TLAB_TPU_MATMUL_PRECISION=highest for f32 validation work against
-    f64, or when running marginally-resolved spectra studies where the
-    truncation floor is pushed below 1e-5.
+    Default HIGHEST: plain fp32 products, which hold the 1e-4 relative
+    error per RK step that the production f32 run is allowed (~20x below
+    the compact-6 truncation error of a resolved DNS).  One RK4-5 step of
+    the 512x256x256 shear layer against f64 on an H100 (400 W), max over
+    fields of the relative L2 error (`python chip_study.py precision`):
+
+        high (TF32, one pass)                 6.2e-4   fails
+        highest (fp32)                        1.8e-5
+        TF32_TF32_F32_X3 (3-pass TF32)        1.9e-5
+        BF16_BF16_F32_X3 (3-pass bf16)        3.6e-5   (divergence 2.9e-3)
+
+    TLAB_TPU_MATMUL_PRECISION=default leaves the choice to JAX's own
+    jax_default_matmul_precision, which also takes the names of
+    jax.lax.DotAlgorithmPreset (how the 3-pass rows were measured).
     """
     if dtype in (jnp.float32,):
         import os
-        name = os.environ.get("TLAB_TPU_MATMUL_PRECISION", "high").lower()
+        name = os.environ.get("TLAB_TPU_MATMUL_PRECISION", "highest").lower()
         return _PRECISION_BY_NAME.get(name, jax.lax.Precision.HIGHEST)
     return None
 
@@ -80,8 +83,8 @@ def der2(plan_d2, u, axis: int):
 def der12(plan_d12, u, axis: int):
     """Fused first+second derivative with the stacked (2n, n) operator.
 
-    One matmul computes both derivatives (a single pass over u through the
-    MXU), the hot pattern of the Burgers operator.
+    One matmul computes both derivatives (a single pass over u), the hot
+    pattern of the Burgers operator.
     """
     n = u.shape[axis]
     out = apply_along(plan_d12, u, axis)

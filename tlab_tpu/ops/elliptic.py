@@ -8,13 +8,13 @@ each horizontal mode solve the two-point boundary-value problem
 
     p_hat'' - lambda p_hat = f_hat,   lambda = k'x^2-like modified eigenvalue
 
-The vertical solve is the TPU-native departure from the reference: instead of
+The vertical solve departs from the reference: instead of
 per-mode banded LU sweeps (reference FDM_Int2_Solve), the lambda-affine
 pencil (M0 - lambda*M1) u = R f is diagonalized ONCE at plan time,
 
     u = V diag(1 / (1 - (lambda - ls) Lam)) V^-1 Ms^-1 R f,
 
-so the whole field solve is two dense (ny x ny) matmuls on the MXU plus an
+so the whole field solve is two dense (ny x ny) matmuls plus an
 elementwise scale -- the same machine pattern as a derivative, for every
 horizontal mode at once. A float64 direct-solve fallback (vmapped dense
 solve) provides the validation path.
@@ -286,22 +286,22 @@ def solve_modal(plan_dev: dict, f_hat, alpha: float | jnp.ndarray = 0.0,
         # overwrite the (kx=0, kz=0) singular column with the compatible
         # Dirichlet-bottom solve (mean pressure pinned to 0 at the wall)
         f0 = f_hat[0, :, 0].at[0].set(0.0)        # zero bottom bc value
-        u0 = S_sing.astype(f_hat.dtype) @ f0
+        u0 = jnp.matmul(S_sing.astype(f_hat.dtype), f0, precision=prec)
         u_hat = u_hat.at[0, :, 0].set(u0)
     return u_hat
 
 
-def _transform_mode(dtype) -> str:
-    """'matmul' (DFT as MXU matmuls) or 'fft' (XLA FFT). XLA's TPU FFT runs
-    at ~bf16 accuracy for f32 and is ~2x slower than the HIGHEST-precision
-    matmul DFT (measured 17.2 vs 8.1 ms roundtrip at 512x256x256), so
-    matmul is the f32 default; f64 (CPU validation) keeps the exact FFT.
-    Override with TLAB_TPU_POISSON_TRANSFORM=fft|matmul."""
+def _transform_mode() -> str:
+    """'fft' (XLA's FFT, cuFFT on the GPU) or 'matmul' (DFT as dense
+    matmuls, ops/rdft.py).  FFT is the default at every precision: at
+    512x256x256 fp32 on an H100 (400 W) the whole step takes 147.8 ms with
+    cuFFT against 167.2 ms with fp32 DFT matmuls, with the same divergence
+    residual after one step (3.7e-5 vs 3.4e-5 in the middle of the layer;
+    `python chip_study.py transform`).  TLAB_TPU_POISSON_TRANSFORM=matmul
+    selects the DFT path."""
     import os
     name = os.environ.get("TLAB_TPU_POISSON_TRANSFORM", "").lower()
-    if name in ("fft", "matmul"):
-        return name
-    return "matmul" if jnp.dtype(dtype) == jnp.float32 else "fft"
+    return "matmul" if name == "matmul" else "fft"
 
 
 def device_elliptic_plan(plan: EllipticPlan, dtype=jnp.float32,
@@ -322,7 +322,7 @@ def device_elliptic_plan(plan: EllipticPlan, dtype=jnp.float32,
         nx = 2 * (plan.lam_x.shape[0] - 1)
         nz = plan.lam_z.shape[0]
         sizes = (nx, nz) if nx > 0 else None
-    if sizes is not None and _transform_mode(dtype) == "matmul":
+    if sizes is not None and _transform_mode() == "matmul":
         from tlab_tpu.ops import rdft
         d["dft"] = rdft.device_rdft_plan(sizes[0], sizes[1], dtype)
     return d

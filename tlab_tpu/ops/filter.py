@@ -1,7 +1,7 @@
 """3-D field filtering (reference src/operators/opr_filter.f90).
 
 A FilterPlan holds one dense line-filter matrix per active direction; the
-3-D filter is their composition, each one MXU matmul. Used for the domain
+3-D filter is their composition, each one matmul. Used for the domain
 filter (every nitera_filter steps), dealiasing, and pressure filtering.
 """
 from __future__ import annotations

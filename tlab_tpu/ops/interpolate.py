@@ -2,7 +2,7 @@
 transgrid.x/transfields.x, src/operators/opr_interpolate.f90).
 
 Per-direction interpolation collapses to a precomputed dense matrix
-(new_nodes x old_nodes) applied with the same MXU machinery as the
+(new_nodes x old_nodes) applied with the same matmul machinery as the
 derivatives. Cubic Lagrange (4-point local) interior, matching the
 reference's cubic-spline remeshing accuracy class; periodic directions wrap.
 """

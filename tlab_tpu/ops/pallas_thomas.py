@@ -1,18 +1,14 @@
 """Batched banded-solver backends for long compact-FDM lines.
 
 The dense-operator formulation (fdm/plan.py) applies compact schemes as
-N x N matmuls -- optimal on the MXU for moderate line lengths (N <~ 2k,
-where 2N flops/point rides the systolic array faster than memory).  For
-long lines this module provides the O(N L) PARTITIONED (substructured)
-solve: per-segment dense inverses + a small interface system, all MXU
-einsums -- the TPU-native answer to the reference's TRIDFS/TRIDSS banded
-LU sweeps (src/utils/linear3.f90:29-56).
-
-A hand-written sequential Pallas Thomas kernel lived here through round 3;
-it was never selected in production (the recurrence uses one sublane row
-per step and cannot feed the 8x128 VPU; the partitioned path beats it at
-every measured size) and was removed in round 4 -- the partitioned solve
-is the single long-line backend.
+N x N matmuls -- the right choice for moderate line lengths, where the 2N
+flops/point of one large matmul cost less than the extra passes of a
+banded solve.  For long lines this module provides the O(N L)
+PARTITIONED (substructured) solve: per-segment dense inverses + a small
+interface system, all einsums -- the matmul-shaped answer to the
+reference's TRIDFS/TRIDSS banded LU sweeps (src/utils/linear3.f90:29-56).
+The partitioned solve is the single long-line backend; no sequential
+Thomas kernel is kept.
 """
 from __future__ import annotations
 
@@ -21,14 +17,14 @@ import jax.numpy as jnp
 
 
 # ---------------------------------------------------------------------------
-# Partitioned (substructured) tridiagonal solve -- the TPU-native O(N L)
-# backend.  The sequential Thomas recurrence cannot use the 8x128 VPU
-# efficiently (one sublane row per step); instead the line is split into
+# Partitioned (substructured) tridiagonal solve -- the O(N L) backend.
+# A sequential Thomas recurrence exposes no parallelism along the line;
+# instead the line is split into
 # S segments of length L, each segment solved by a PRECOMPUTED dense
-# L x L inverse (an MXU matmul), with the 2S interface unknowns closed by
+# L x L inverse (a matmul), with the 2S interface unknowns closed by
 # a small precomputed 2S x 2S inverse.  Exact algebra (a block LU of the
 # same matrix), flops/point = 2L instead of the dense path's 2N -- a
-# N/L speedup at N >> L that stays entirely on the MXU with XLA-scheduled
+# N/L saving at N >> L that stays entirely in XLA-scheduled
 # einsums (no hand-written kernel, no sequential loop).
 # Cf. Wang 1981 partition method; PAPERS.md PaScaL_TDMA.
 # ---------------------------------------------------------------------------

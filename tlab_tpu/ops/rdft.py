@@ -1,12 +1,13 @@
-"""Horizontal Fourier transforms as dense real matmuls on the MXU.
+"""Horizontal Fourier transforms as dense real matmuls.
 
-XLA's TPU FFT executes at roughly bf16 accuracy for f32 inputs (measured
-roundtrip error O(1) on O(1) data at 512x256x256) and is slower than the
-MXU: the same transforms as precomputed DFT matrices at HIGHEST precision
-are ~2x faster AND f32-accurate. This module provides the rfft_x / fft_z
-pair used by the elliptic solvers in that form (reference OPR_Fourier's
-FFTW plans, src/operators/opr_fourier.f90:101-200 — same role, different
-machine mapping).
+The alternative to XLA's FFT for the elliptic solvers' horizontal
+transforms, selected with TLAB_TPU_POISSON_TRANSFORM=matmul
+(elliptic._transform_mode).  On an H100 (400 W) at 512x256x256 fp32 the
+whole step takes 167.2 ms this way against 147.8 ms with cuFFT, at the
+same divergence residual (`python chip_study.py transform`), so the FFT
+is the default.  The rfft_x /
+fft_z pair plays the role of the reference OPR_Fourier's FFTW plans
+(src/operators/opr_fourier.f90:101-200).
 
 Forward x (rfft):   re = C @ f,  im = S @ f        C,S: (nkx, nx)
 Forward z (fft):    (re,im) -> 2x2 real matmuls with Cz, Sz: (nz, nz)
@@ -27,14 +28,10 @@ from tlab_tpu.ops.derivative import op_precision
 
 def _dft_precision(dtype):
     """Matmul precision for the DFT stages.  The DFT matrices are
-    orthogonal-up-to-scaling (cond 1), so the eigen-chain conditioning
-    argument behind the r3 elliptic HIGHEST pin does not apply to them:
-    they follow the production op_precision (HIGH by default, HIGHEST
-    under TLAB_TPU_MATMUL_PRECISION=highest validation runs).  Measured
-    r4 on v5e: +5.1% full-step (663.5 vs 631.4 M pts/s/chip/substep)
-    with the post-projection divergence residual UNCHANGED (13.415 vs
-    13.436 on the 256x192x128 noise probe) and ||u||^2 equal to 1e-7
-    relative.  TLAB_TPU_DFT_PRECISION=highest restores the old pin."""
+    orthogonal up to scaling (cond 1), so they follow the operator
+    precision (op_precision) rather than the elliptic chain's HIGHEST
+    pin; TLAB_TPU_DFT_PRECISION=highest pins them to HIGHEST whatever
+    the operator precision."""
     if dtype == jnp.float32 and \
             os.environ.get("TLAB_TPU_DFT_PRECISION", "op") == "highest":
         return jax.lax.Precision.HIGHEST

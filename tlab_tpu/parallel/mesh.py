@@ -1,6 +1,6 @@
 """Device mesh and sharding layouts for the 2-D pencil decomposition.
 
-TPU-native mapping of the reference's x-z processor grid
+JAX-native mapping of the reference's x-z processor grid
 (src/base/tlab_mpi_procs.f90:76-94): a 2-D jax mesh with axes ('x', 'z');
 fields (nx, ny, nz) live block-sharded P('x', None, 'z') -- y is never
 decomposed, exactly like the reference.

@@ -1,6 +1,6 @@
-"""Explicit pencil-transpose engine: shard_map + ICI all-to-all.
+"""Explicit pencil-transpose engine: shard_map + all-to-all collectives.
 
-The TPU-native re-design of the reference's global transpose engine
+The JAX-native re-design of the reference's global transpose engine
 (src/base/tlab_mpi_transpose.f90): fields live block-sharded (nx/Px, ny,
 nz/Pz) on the ('x','z') mesh; an x- or z-derivative gathers full lines with
 ONE lax.all_to_all over the corresponding mesh axis, applies the dense
@@ -140,7 +140,7 @@ def pencil_poisson(plan_dev, f, comm, bcs_b=None, bcs_t=None, d1y=None,
     S_sing = plan_dev.get("S_sing") if singular_fix else None
     if S_sing is not None:
         f0 = fh[0, :, 0].at[0].set(0.0)
-        u0 = S_sing.astype(fh.dtype) @ f0
+        u0 = jnp.matmul(S_sing.astype(fh.dtype), f0, precision=prec)
         uh_fixed = uh.at[0, :, 0].set(u0)
         uh = jnp.where(jnp.equal(off, 0), uh_fixed, uh)
 
@@ -196,10 +196,9 @@ def pencil_poisson_factorize(fac_dev, f, comm, bcs_b=None, bcs_t=None):
     f = f.at[:, 0, :].set(0.0 if bcs_b is None else bcs_b)
     f = f.at[:, -1, :].set(0.0 if bcs_t is None else bcs_t)
 
-    # DFT-as-matmul transforms when the plan carries them (f32 TPU:
-    # 2x faster than XLA's TPU FFT and f32-accurate where the FFT is
-    # ~bf16-accurate) -- the same policy as the single-device
-    # poisson_factorize and pencil_poisson
+    # DFT-as-matmul transforms when the plan carries them -- the same
+    # transform policy as the single-device poisson_factorize and
+    # pencil_poisson (elliptic._transform_mode)
     dft = fac_dev.get("dft")
     nkx = nx // 2 + 1
     use_dft = dft is not None and nx == dft["Cx"].shape[1]
@@ -280,24 +279,6 @@ def pencil_poisson_factorize(fac_dev, f, comm, bcs_b=None, bcs_t=None):
 # ---------------------------------------------------------------------------
 
 
-def _mesh_jit(mesh, fn):
-    """jit with async ICI collectives on TPU meshes: XLA's default TPU
-    schedule keeps all-to-alls SYNCHRONOUS (measured on the v5e-compiled
-    step: 22 sync ops, zero overlap); xla_tpu_enable_async_all_to_all
-    turns them into start/done pairs that the latency-hiding scheduler
-    fills with compute (19 of 20 windows carry fusions/dots in the same
-    compiled step) -- the XLA-native analog of the reference's
-    PSFFT/NB3DFFT overlapped RHS (rhs_global_incompressible_nbc.f90)."""
-    try:
-        is_tpu = next(iter(mesh.devices.flat)).platform == "tpu"
-    except Exception:
-        is_tpu = False
-    if is_tpu:
-        return jax.jit(fn, compiler_options={
-            "xla_tpu_enable_async_all_to_all": "true"})
-    return jax.jit(fn)
-
-
 def pencil_plans(mesh, P, wire_dtype=None) -> dict:
     """P augmented with the comm descriptor and the mesh-padded elliptic
     tables (kx zero-padding keeps the all-to-alls tiled; shared by every
@@ -362,7 +343,7 @@ def make_pencil_step(mesh, P, rk_step_fn, wire_dtype=None,
     lax.fori_loop with a fixed dt (the dns driver's dispatch-amortization
     window on the single-device path, now available on the mesh too --
     the reference syncs every step at TIME_COURANT, time.f90:365; this
-    is where the TPU build beats that, not ties it).  The aux pytree,
+    is where this build beats that, not ties it).  The aux pytree,
     when present, is held fixed over the window (lagged CFL/ramp, same
     as the single-device window semantics).
     """
@@ -400,7 +381,7 @@ def make_pencil_step(mesh, P, rk_step_fn, wire_dtype=None,
         def step_local_aux(state, dtime, aux):
             return _loop(state, dtime, aux)
 
-        return _mesh_jit(mesh, step_local_aux)
+        return jax.jit(step_local_aux)
 
     if return_p:
         @functools.partial(
@@ -411,7 +392,7 @@ def make_pencil_step(mesh, P, rk_step_fn, wire_dtype=None,
         def step_local_p(state, dtime):
             return _loop(state, dtime)
 
-        return _mesh_jit(mesh, step_local_p)
+        return jax.jit(step_local_p)
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -422,7 +403,7 @@ def make_pencil_step(mesh, P, rk_step_fn, wire_dtype=None,
         new_state, _ = _loop(state, dtime)
         return new_state
 
-    return _mesh_jit(mesh, step_local)
+    return jax.jit(step_local)
 
 
 def make_pencil_filter(mesh, P, mats=None, helmholtz_alpha=None,
@@ -468,7 +449,7 @@ def make_pencil_filter(mesh, P, mats=None, helmholtz_alpha=None,
         return State(u=_one(state.u), v=_one(state.v), w=_one(state.w),
                      s=s, sfc=state.sfc)
 
-    return _mesh_jit(mesh, filt_local)
+    return jax.jit(filt_local)
 
 
 def make_pencil_step_particles(mesh, P, grid, pprops, wire_dtype=None):
@@ -609,7 +590,7 @@ def make_pencil_step_particles(mesh, P, grid, pprops, wire_dtype=None):
         V_out = jnp.concatenate([V, PR], axis=1)
         return state, (X[None], V_out[None], T[None], M[None]), p
 
-    return _mesh_jit(mesh, step_local)
+    return jax.jit(step_local)
 
 
 def make_pencil_step_compressible(mesh, P, step_fn, wire_dtype=None,
@@ -644,7 +625,7 @@ def make_pencil_step_compressible(mesh, P, step_fn, wire_dtype=None,
             val = lax.pmax(lax.pmax(val, "x"), "z")
             return new_U, val
 
-        return _mesh_jit(mesh, step_local_s)
+        return jax.jit(step_local_s)
 
     @functools.partial(
         shard_map, mesh=mesh,
@@ -654,4 +635,4 @@ def make_pencil_step_compressible(mesh, P, step_fn, wire_dtype=None,
     def step_local(U, dtime):
         return step_fn(Pp, U, dtime)
 
-    return _mesh_jit(mesh, step_local)
+    return jax.jit(step_local)

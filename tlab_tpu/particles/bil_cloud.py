@@ -1,6 +1,6 @@
 """Two-phase cloud-droplet particles ("bilinearcloud" types).
 
-TPU-native equivalent of the reference PART_TYPE_BIL_CLOUD_3/4 machinery
+JAX-native equivalent of the reference PART_TYPE_BIL_CLOUD_3/4 machinery
 (src/tools/dns/rhs_part_1.f90:56-140, particle_time_residence.f90,
 particle_time_liquid_clipping.f90): particles carry two prognostic droplet
 scalars (diffusive / non-diffusive liquid) driven by Eulerian source fields

@@ -1,6 +1,6 @@
 """Lagrangian point particles (reference src/particles/*).
 
-TPU-native design: fixed-size SoA arrays (n_part, ...) advanced with the
+JAX-native design: fixed-size SoA arrays (n_part, ...) advanced with the
 same low-storage RK scheme as the flow; grid->particle interpolation is a
 vectorized trilinear gather (reference FIELD_TO_PARTICLE,
 particle_interpolate.f90, which is trilinear with halo exchanges), and

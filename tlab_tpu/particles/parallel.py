@@ -1,6 +1,6 @@
 """Owner-sharded particle ensembles on the ('x','z') pencil mesh.
 
-TPU-native re-design of the reference's particle migration
+JAX-native re-design of the reference's particle migration
 (src/particles/particle_mpi_sort.f90 counting sort + point-to-point
 exchange): each device owns a fixed-capacity slot array of the particles
 inside its (x, z) block, tracked by a validity mask. After each step,

@@ -1,7 +1,7 @@
 """Caloric / thermal / transport equations of state for the compressible
 core.
 
-TPU-native equivalents of the reference's thermo_caloric.f90,
+JAX-native equivalents of the reference's thermo_caloric.f90,
 thermo_thermal.f90 and thermo_viscosity.f90 (nondimensional formulation,
 thermodynamics.f90): single-species ideal gas with constant cp is the
 compressible workhorse; the transport law mu(T) is runtime-selectable via

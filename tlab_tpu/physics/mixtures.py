@@ -18,7 +18,7 @@ values the reference hardcodes at thermodynamics.f90:340-430).
 
 Field evaluations are vectorized jnp operations over stacked mass-fraction
 arrays Y of shape (nsp, ...) -- polynomial-in-T Horner chains fuse into a
-handful of elementwise TPU ops.
+handful of elementwise device ops.
 """
 from __future__ import annotations
 

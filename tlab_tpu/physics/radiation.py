@@ -141,7 +141,9 @@ def infrared_source(props: RadiationProps, Jt, Jb, ql, rho_bar):
     uses the RATIO p_tau(bottom)/p_tau(y) exactly as the reference (one
     integral, not a second one)."""
     a = props.kappa * ql * rho_bar[None, :, None]
-    ptau = jnp.exp(-jnp.einsum("ab,ibk->iak", Jt, a))
+    from tlab_tpu.ops.derivative import op_precision
+    ptau = jnp.exp(-jnp.einsum("ab,ibk->iak", Jt, a,
+                               precision=op_precision(a.dtype)))
     if abs(props.flux_bottom) > 0:
         src = a * (ptau * props.flux_top
                    + (ptau[:, :1, :] / ptau) * props.flux_bottom)

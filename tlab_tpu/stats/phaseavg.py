@@ -1,6 +1,6 @@
 """Phase-locked averaging of z-mean planes.
 
-TPU-native equivalent of the reference's PhAvg machinery
+JAX-native equivalent of the reference's PhAvg machinery
 (src/statistics/avg_phase.f90, enabled by [Iteration] PhaseAvg=<stride>):
 every `stride` steps the z-averaged (x, y) planes of velocity, pressure,
 scalars and the velocity stresses are accumulated into the phase slot

@@ -1,6 +1,6 @@
 """Turbulent/non-turbulent interface ("superlayer") analysis.
 
-TPU-native equivalents of the reference superlayer tools
+JAX-native equivalents of the reference superlayer tools
 (src/tools/superlayer/sl_boundary.f90, sl_normal_analysis.f90,
 sl_boundary_vorticity_pdf.f90; surface extraction in
 src/utils/boundary.f90:SL_UPPER_BOUNDARY/SL_LOWER_BOUNDARY): the interface

@@ -53,6 +53,11 @@ def _load_native():
     return _lib or None
 
 
+def native_loaded() -> bool:
+    """True when the C batch kernel (native/nrrand.c) is in use."""
+    return _load_native() is not None
+
+
 class NRStream:
     """Sequential RAN0/RANG stream with the reference's state semantics.
 

@@ -4,7 +4,7 @@ The reference (compile flag TRACE_ON, e.g. rhs_flow_global_2.f90:44)
 writes 'ENTERING/LEAVING <routine>' lines to tlab.trace around every
 routine call. Under XLA the per-call notion changes: device code is
 traced ONCE and dispatched as a fused executable, so the faithful
-TPU-native analog traces
+JAX-native analog traces
 
   - host-side phases (config parse, FDM/elliptic plan construction,
     IC generation, I/O, statistics),
